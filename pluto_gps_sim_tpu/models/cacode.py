@@ -3,7 +3,7 @@
 Behavioral parity with the reference LFSR generator (plutogpssim.c:207-244):
 two 10-stage registers, G1 taps at stages 3 & 10, G2 taps at stages
 2,3,6,8,9,10, chips emitted as 0/1 via (1 - g1*g2)/2 with the per-PRN G2
-delay table.  TPU-native plan per SURVEY.md #5: the sequential LFSR runs
+delay table.  Per SURVEY.md #5 the sequential LFSR runs
 once at import time on the host; the hot path only ever sees the
 precomputed int8 table CA_TABLE[32, 1023].
 """

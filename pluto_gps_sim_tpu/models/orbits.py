@@ -30,7 +30,7 @@ the range solve dropped ~2x (no jit dispatch, no device->host
 conversions, numpy SIMD transcendentals).  numpy vs XLA libm differ by
 <=1-2 ulp — nanometers of range — and every internal bit-exactness
 chain (plan_group == plan loop, skip == plan, MC batch == per-receiver
-schedulers, precise == tiled == pallas) shares this one implementation.
+schedulers, precise == tiled == fused) shares this one implementation.
 """
 
 from __future__ import annotations

@@ -12,8 +12,8 @@ Pure numpy f64 on the host (round 5; was jitted CPU-JAX through round
 4 — the jit dispatch + device->host conversions cost ~2x the actual
 compute on the pipelined stream's host-bound critical path; see
 models/orbits.py for the exactness rationale).  All outputs are
-TPU-kernel-ready: int32 counters and f64 values later split into
-int/f32 anchors.
+ready for the device synthesis: int32 counters and f64 values later
+split into int/f32 anchors.
 
 Exactness notes vs the reference:
   * rhorate uses the (rho1-rho0)/dt pair, rho0 anchored one epoch back
@@ -133,7 +133,7 @@ def ranges_to_params(rho_range: np.ndarray, rho_d: np.ndarray,
     stream's critical host path.  The expression tree is unchanged
     (plain IEEE-754 f64 elementwise ops, truncating int casts), and
     every synthesis path consumes the same plan arrays, so the
-    bit-exactness chain (precise == tiled == pallas) is unaffected.
+    bit-exactness chain (precise == tiled == fused) is unaffected.
 
     Returns dict of [n_blocks, C]: f_carr, f_code, code_phase, iword,
     ibit, icode, gain."""

@@ -17,13 +17,15 @@ on the host and the device does pure integer gathers — bit-identical
 mixing to the reference.
 
 Two precision strategies:
-  * precise (f64 ramps): for CPU golden runs & tests (TPU has no f64);
-  * tiled   (same four-level integer NCOs as the Pallas kernel —
+  * precise (f64 ramps): the golden reference, always run on the CPU;
+  * tiled   (same four-level integer NCOs as the fused path —
     Q12+Q24+Q36+f32 code, u32+f32 carrier — on per-tile f64 anchors
-    computed host-side): the XLA fallback path.  Code-phase truncation
-    2^-36 chips = 1.5e-11 (the f64 closed form's own rounding floor),
-    carrier ~1e-9 cycles.  Fewer levels are NOT enough: a two-level
-    (Q12+f32) code NCO jitters chip edges by ~1.2e-7 chips (~0.1
+    computed host-side, gathering the f64-exact gain tables): the
+    on-device reference path (ops.synth_fused is production).
+    Code-phase truncation 2^-36 chips = 1.5e-11 (the f64 closed form's
+    own rounding floor), carrier ~1e-9 cycles.  Fewer levels are NOT
+    enough: a two-level (Q12+f32) code NCO jitters chip edges by
+    ~1.2e-7 chips (~0.1
     full-amplitude sample flips per 300k-sample block; the round-1
     "rollover cliff" was exactly this, scattered uniformly over every
     long tiled run), and even the Q24 truncation at 6e-8 chips still
@@ -35,6 +37,7 @@ parameters, so slots stay static-shape (jit-stable) and contribute 0.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import jax
@@ -49,7 +52,7 @@ __all__ = ["DevicePlan", "pack_plan", "split_plan",
            "synth_superframe_tiled", "synth_superframe_tiled_async",
            "TILE"]
 
-TILE = 2048  # samples per tile (16 sublanes x 128 lanes at int32/f32)
+TILE = 2048  # samples per tile of the tiled path's per-tile anchors
 
 
 @dataclass
@@ -92,8 +95,8 @@ def pack_plan(plan, tile: int = TILE, tables: bool = True) -> DevicePlan:
     """Convert a runtime.scheduler.SuperframePlan into device arrays.
 
     tables=False skips the tiled/precise-path LUTs and per-tile anchors
-    (~15 MB of f64 work per 300-block superframe); the Pallas path
-    builds its gain tables in-kernel and never reads them."""
+    (~15 MB of f64 work per 300-block superframe); the fused path
+    scales the LUT on device and never reads them."""
     M, C = plan.n_blocks, MAX_CHAN
     N = plan.block_samples
     act = plan.active
@@ -154,7 +157,7 @@ def pack_plan(plan, tile: int = TILE, tables: bool = True) -> DevicePlan:
     step_exact = (u - np.floor(u)) * 2.0**32
     step = np.round(step_exact).astype(np.int64)
     step_u32 = (step & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-    # two-level carrier step residual (synth_pallas._F_SR12 rationale):
+    # two-level carrier step residual (ops.params._F_SR12 rationale):
     # a single f32 trunc level (error +-1 u32 unit) lets Doppler-resonant
     # blocks collect adjacent-LUT picks; the Q12 level puts the ramp
     # error at 2^-12 units — the f64 closed form's own rounding class
@@ -182,11 +185,11 @@ def pack_plan(plan, tile: int = TILE, tables: bool = True) -> DevicePlan:
 def split_plan(dp: DevicePlan, max_samples: int) -> DevicePlan:
     """Split every block of a (tables=False) DevicePlan into K equal
     sub-blocks of <= max_samples samples, with re-anchored closed-form
-    parameters — this is what lifts the fused Pallas kernel's Q24 range
-    cap (synth_pallas.MAX_BLOCK_SAMPLES, fs <= 5.24 MHz at 0.1 s
-    blocks) to ANY sample rate: the reference accepts any -s >= 1 MHz
+    parameters — this is what lifts the fused path's Q24 range cap
+    (params.MAX_BLOCK_SAMPLES, fs <= 5.24 MHz at 0.1 s blocks) to ANY
+    sample rate: the reference accepts any -s >= 1 MHz
     (plutogpssim.c:2326-2329), and sub-blocks are just shorter rows of
-    the kernel's outer grid axis.
+    the block axis.
 
     Sub-block k of block m starts at sample offset k*sub and carries:
       carrier   c0' = c0 + u*(k*sub)          (f64; frac'd at pack time)
@@ -250,7 +253,7 @@ def split_plan(dp: DevicePlan, max_samples: int) -> DevicePlan:
     # per-sub-block gain LUTs repeat (gain is per block); the tiled
     # path's per-tile anchors would need recomputation and the tiled
     # path has no range cap to lift, so they come back empty — split
-    # plans feed the pallas and precise paths only
+    # plans feed the fused and precise paths only
     z = np.zeros((M * K, C, 0), np.int32)
     return DevicePlan(
         n_blocks=M * K, block_samples=sub, n_tiles=-(-sub // TILE),
@@ -322,18 +325,20 @@ def synth_superframe_precise(dp: DevicePlan) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# tiled (f32/int32) path — TPU production XLA path
+# tiled (f32/int32) path — the on-device XLA reference
 # ---------------------------------------------------------------------------
 
+@functools.cache
 def make_synth_tiled(n_blocks: int, block_samples: int, n_tiles: int,
                      tile: int = TILE):
-    """Build a jitted superframe synthesizer for fixed shapes.
+    """Build a jitted superframe synthesizer for fixed shapes (one per
+    shape for the process's lifetime, so a stream compiles once).
 
     Returns fn(ca2, bits, v_q12, r24, r36, rrr, step_u32, sr12, srem,
                b0, ic0, code_q12, code_q24, code_q36, carr_u32,
                carr_q12, qcos_pm, qsin_pm) -> int16 [M, N, 2].
 
-    NCOs are the Pallas kernel's multi-level scheme (synth_pallas.py) on
+    NCOs are the fused path's multi-level scheme (ops.synth_fused) on
     per-tile f64-exact anchors, so in-tile n <= tile keeps every level
     far inside its range: carrier = floor u32 anchor + two-level (Q12 +
     f32) step residual seeded with the anchor's sub-unit Q12 digit (the

@@ -1,6 +1,5 @@
 from .mesh import factor_devices, make_mesh
 from .montecarlo import MonteCarloBatch
-from .shard import pad_time_shards, shard_channel_params, synth_sharded
+from .shard import synth_sharded
 
-__all__ = ["MonteCarloBatch", "factor_devices", "make_mesh",
-           "pad_time_shards", "shard_channel_params", "synth_sharded"]
+__all__ = ["MonteCarloBatch", "factor_devices", "make_mesh", "synth_sharded"]

@@ -1,15 +1,15 @@
 """Batched Monte-Carlo trajectory synthesis.
 
 Nothing like this exists in the reference — it simulates exactly one
-receiver (plutogpssim.c:2203).  On TPU the marginal cost of more
+receiver (plutogpssim.c:2203).  On the device the marginal cost of more
 receivers is tiny: every trajectory contributes an independent set of
-0.1 s blocks, and blocks are the kernel's outer grid axis, so a batch of
-B receivers over M blocks is ONE kernel launch over B*M blocks (and
+0.1 s blocks, and blocks are the synthesis's outer axis, so a batch of
+B receivers over M blocks is ONE synthesis call over B*M blocks (and
 shards over a mesh's "time"/"chan" axes like any other stream via
 parallel.synth_sharded).
 
 Control plane (batched; the naive form — B sequential Schedulers each
-making its own jit round-trips — costs ~3x the kernel time at B=256):
+making its own jit round-trips — costs ~3x the synthesis time at B=256):
 
   * all receivers share one scenario clock, so the epoch grid
     (g_secs/g_weeks) is computed once;
@@ -41,13 +41,14 @@ from ..ingest.rinex import RinexResult
 from ..models import orbits
 from ..models.gpstime import GpsTime
 from ..models.lnav import NavCache
-from ..ops import synth_pallas as sp
+from ..ops import params as pp
+from ..ops import synth_fused
 from ..ops.epoch import (solve_ranges, solve_ranges_batch,
                          solve_ranges_batch_lean)
 from ..ops.synth_jnp import pack_plan
 
 from ..runtime.scheduler import Scheduler, _gather_eph
-from .shard import pad_time_shards, shard_channel_params, synth_sharded
+from .shard import synth_sharded
 
 __all__ = ["MonteCarloBatch"]
 
@@ -67,15 +68,15 @@ class MonteCarloBatch:
         self.B = xyz_batch.shape[0]
         self.rin = rin
         bs = int(block_samples or round(fs / 10))
-        if bs > sp.MAX_BLOCK_SAMPLES:
+        if bs > pp.MAX_BLOCK_SAMPLES:
             # the single-receiver stream splits over-long blocks into
             # re-anchored sub-blocks (runtime.stream.IqStream /
             # ops.synth_jnp.split_plan); the batch path doesn't carry
             # the reassembly plumbing — fail with guidance instead of
-            # the kernel builder's bare range assert
+            # the parameter builder's bare range assert
             raise ValueError(
-                f"block_samples={bs} exceeds the fused kernel's Q24 "
-                f"range ({sp.MAX_BLOCK_SAMPLES}; fs <= 5.24 MHz at "
+                f"block_samples={bs} exceeds the fused path's Q24 "
+                f"range ({pp.MAX_BLOCK_SAMPLES}; fs <= 5.24 MHz at "
                 f"0.1 s blocks); Monte-Carlo batches do not sub-block "
                 f"split — use fs <= 5.24 MHz, or per-receiver IqStream "
                 f"runs (which split transparently)")
@@ -116,7 +117,7 @@ class MonteCarloBatch:
     _SOLVE_CHUNK_EPOCHS = 1024
 
     def plan_blocks(self, n_blocks: int):
-        """Plan n_blocks for every trajectory; returns kernel-ready args.
+        """Plan n_blocks for every trajectory; returns synthesis-ready args.
 
         All trajectories share the scenario clock, so their superframe
         boundaries align and every plan() round covers the same block
@@ -206,14 +207,14 @@ class MonteCarloBatch:
         # C/A tables dedupe by chip-table bytes: receivers near each
         # other see the same satellites, so B=256 plans typically share
         # a handful of distinct tables — sf_map rows point straight at
-        # the deduped slot (the kernel reads tables through sf_map, so
+        # the deduped slot (blocks read tables through sf_map, so
         # the output is bit-identical; the ~1.2 s/256-table bit-pack
         # pass and its H2D bytes collapse with it)
         ca_seen: dict = {}
         dps_all = []
         for b in range(self.B):
             for plan in per_b[b]:
-                dp = pack_plan(plan, tables=False)  # kernel builds LUTs
+                dp = pack_plan(plan, tables=False)  # device builds LUTs
                 dps_all.append(dp)
                 key = dp.ca2.tobytes()
                 idx = ca_seen.get(key)
@@ -224,24 +225,23 @@ class MonteCarloBatch:
         # one batched parameter build over all B receivers' plans
         # (bit-identical to per-plan builds + concat; per-op numpy
         # overhead amortizes over B x n_superframes segments)
-        bp = sp.build_group_params(dps_all)
+        bp = pp.build_group_params(dps_all)
         self.patch_dropped += bp.patch_dropped
         prmi, prmf = bp.prmi, bp.prmf
         sf_map = np.concatenate(sf_map)
         # pad the deduped table list to a power-of-two bucket (repeating
         # the first table; sf_map never points at the padding): the
-        # kernel's compiled shape is keyed on n_sf, and a content-
-        # dependent table count would otherwise trigger a fresh
-        # Mosaic/XLA compile (~20-40 s on TPU) whenever the visible set
-        # drifts with the scenario clock — same one-compiled-shape
-        # policy as the stream path's per-superframe slots
+        # compiled shape is keyed on the table count, and a content-
+        # dependent count would otherwise trigger a fresh compile
+        # whenever the visible set drifts with the scenario clock —
+        # same one-compiled-shape policy as the stream path's
+        # per-superframe slots
         n_pad = 1 << max(len(ca_tabs) - 1, 0).bit_length()
-        ca2 = sp.pack_ca_tables(ca_tabs + [ca_tabs[0]] * (n_pad - len(ca_tabs)))
+        ca2 = pp.pack_ca_tables(ca_tabs + [ca_tabs[0]] * (n_pad - len(ca_tabs)))
         self.control_seconds += _time.time() - t_start
         return prmi, prmf, ca2, sf_map
 
     def superframes(self, n_blocks: int, mesh=None, device=None,
-                    interpret: bool = False,
                     chunk_blocks: int | None = None,
                     as_device: bool = False):
         """Stream the batch as (block_offset, iq) chunks — host RSS stays
@@ -251,50 +251,40 @@ class MonteCarloBatch:
         Blocks are receiver-major: global row r = b*n_blocks + k is
         receiver b's block k; each yielded chunk covers rows
         [block_offset, block_offset + len).  as_device=True yields the
-        packed int32 device array [len, NT] instead of host int16
+        packed int32 device array [len, N] instead of host int16
         [len, N, 2] (device-resident consumers skip the fetch);
         otherwise chunk k+1's launch overlaps chunk k's D2H (one-deep
         software pipeline, same as runtime.stream.IqStream).
 
-        chunk_blocks also bounds the blocks per kernel launch so the
-        packed output stays inside HBM at large B (each block's output
-        is ~4*padded_samples bytes).  NOTE: the one-deep pipeline keeps
-        up to TWO chunks' outputs live on device at once (chunk k's
-        buffer is still draining while k+1 synthesizes) — size
-        chunk_blocks so two chunks fit HBM.  Default: whole batch in
-        one launch (mesh runs always launch whole — shard_map owns the
-        partition)."""
-        import jax
-
+        chunk_blocks also bounds the blocks per synthesis call so the
+        packed output stays inside device memory at large B (each
+        block's output is 4*block_samples bytes).  NOTE: the one-deep
+        pipeline keeps up to TWO chunks' outputs live on device at once
+        (chunk k's buffer is still draining while k+1 synthesizes) —
+        size chunk_blocks so two chunks fit.  Default: whole batch in
+        one call (mesh runs always launch whole — shard_map owns the
+        partition).  device defaults to
+        runtime.device.synthesis_device()."""
         prmi, prmf, ca2, sf_map = self.plan_blocks(n_blocks)
-        if mesh is None and device is None and not interpret:
-            # compiled Pallas needs a TPU; interpret elsewhere
-            tpus = [d for d in jax.devices() if d.platform == "tpu"]
-            device = tpus[0] if tpus else None
-            interpret = not tpus
         total = self.B * n_blocks
-        n = self.block_samples
 
         def finish(off, out):
             if as_device:
                 return off, out
-            return off, sp.unpack_iq(out, n)
+            return off, pp.unpack_iq(out)
 
         if mesh is not None:
-            prmi, prmf, sf_map = pad_time_shards(
-                prmi, prmf, sf_map, mesh.shape["time"])
-            prmf_sh = shard_channel_params(prmf, mesh.shape["chan"])
-            out = synth_sharded(mesh, prmi, prmf_sh, ca2, sf_map,
-                                self.block_samples)[:total]
+            out = synth_sharded(mesh, prmi, prmf, ca2, sf_map,
+                                self.block_samples)
             yield finish(0, out)
             return
         step = total if chunk_blocks is None else max(1, chunk_blocks)
         pending = None
         for off in range(0, total, step):
             hi = min(off + step, total)
-            out = sp.synth_blocks_pallas(
+            out = synth_fused.synth_blocks(
                 (prmi[off:hi], prmf[off:hi]), ca2, sf_map[off:hi],
-                self.block_samples, device=device, interpret=interpret)
+                self.block_samples, device=device)
             if not as_device:
                 fn = getattr(out, "copy_to_host_async", None)
                 if fn is not None:
@@ -306,7 +296,6 @@ class MonteCarloBatch:
             yield finish(*pending)
 
     def generate(self, n_blocks: int, mesh=None, device=None,
-                 interpret: bool = False,
                  chunk_blocks: int | None = None) -> np.ndarray:
         """Synthesize [B, n_blocks, N, 2] int16 IQ over B*n_blocks blocks
         (sharded over `mesh` when given).
@@ -319,7 +308,6 @@ class MonteCarloBatch:
         out = np.empty((self.B * n_blocks, n, 2), dtype=np.int16)
         done = 0
         for off, iq in self.superframes(n_blocks, mesh=mesh, device=device,
-                                        interpret=interpret,
                                         chunk_blocks=chunk_blocks):
             out[off:off + iq.shape[0]] = iq
             done += iq.shape[0]

@@ -15,13 +15,13 @@ __all__ = ["synthetic_params"]
 
 
 def synthetic_params(n_blocks: int, block_samples: int, seed: int = 3):
-    """Returns (prmi, prmf, ca_tabs, sf_map) for the fused kernel."""
+    """Returns (prmi, prmf, ca_tabs, sf_map) for the fused synthesis."""
     import jax  # noqa: F401  (triggers x64 config via package import)
 
     from ..constants import CODE_FREQ, MAX_CHAN
     from ..models.cacode import CA_TABLE
-    from ..ops import synth_pallas as sp
-    from ..ops.synth_jnp import DevicePlan
+    from ..ops import params as pp
+    from ..ops.synth_jnp import TILE, DevicePlan
 
     rng = np.random.RandomState(seed)
     M, C = n_blocks, MAX_CHAN
@@ -34,7 +34,7 @@ def synthetic_params(n_blocks: int, block_samples: int, seed: int = 3):
     z3 = np.zeros((M, C, 1), np.int32)
     dp = DevicePlan(
         n_blocks=M, block_samples=block_samples,
-        n_tiles=-(-block_samples // sp.choose_tile(block_samples)),
+        n_tiles=-(-block_samples // TILE),
         ca2=(CA_TABLE[:C] * 2 - 1).astype(np.int8),
         bits=rng.choice([-1, 1], (C, 1800)).astype(np.int8),
         active=np.ones((M, C), bool),
@@ -53,7 +53,7 @@ def synthetic_params(n_blocks: int, block_samples: int, seed: int = 3):
         srem=np.zeros((M, C), np.float32),
         code_q12=z3, code_q24=z3, code_q36=z3, carr_u32=z3, carr_q12=z3,
     )
-    prmi, prmf, _ = sp.build_block_params(dp)
-    ca_tabs = sp.pack_ca_tables([dp.ca2])
+    prmi, prmf, _ = pp.build_block_params(dp)
+    ca_tabs = pp.pack_ca_tables([dp.ca2])
     sf_map = np.zeros(M, np.int32)
     return prmi, prmf, ca_tabs, sf_map

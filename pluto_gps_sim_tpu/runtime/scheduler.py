@@ -1,7 +1,7 @@
-"""Superframe scheduler: host control plane for the TPU synthesis stream.
+"""Superframe scheduler: host control plane for the device synthesis stream.
 
 The reference interleaves everything in one sequential loop (epoch solve,
-sample loop, 30 s nav/allocation updates, c:2655-2806).  The TPU design
+sample loop, 30 s nav/allocation updates, c:2655-2806).  This design
 splits control from compute: this scheduler plans *superframes* (runs of
 0.1 s blocks between consecutive 30 s boundaries), does all host-side
 control at the boundaries in exactly the reference's order —

@@ -9,13 +9,13 @@ output stage pluggable:
   udp     datagrams to host:port (for an off-box SDR bridge)
   null    discard (benchmarks)
   iio     thin host-side ADALM-Pluto bridge, only if a libiio Python
-          binding is importable (optional hardware extra; the TPU
+          binding is importable (optional hardware extra; the
           framework core never requires SDR hardware)
 
 Any sink can be wrapped in real-time pacing backed by the native C++
 ring writer (utils/native.py) — the equivalent of the reference's
 blocking iio_buffer_push clocking the program to fs (c:2152) — except
-the TPU producer runs ahead and the ring absorbs the slack.
+the device producer runs ahead and the ring absorbs the slack.
 """
 
 from __future__ import annotations
@@ -212,7 +212,7 @@ class RealtimeSink:
     The consumer thread emits bytes at exactly 4*fs bytes/s (int16 I+Q),
     the producer blocks only when the ring is full — the framework's
     equivalent of the reference's real-time contract, with the ring
-    absorbing the TPU's >>1x generation speed.
+    absorbing the device's >>1x generation speed.
     """
 
     def __init__(self, fd: int, fs: float, close_fd: bool = False,
@@ -256,7 +256,7 @@ class UdpRealtimeSink(RealtimeSink):
     A connected SOCK_DGRAM socket turns each consumer-thread write()
     into one datagram; the ring writer emits fixed payload_samples-sized
     packets on absolute deadlines, so a receiver sees the stream at
-    exactly 4*fs bytes/s regardless of how far ahead the TPU runs.
+    exactly 4*fs bytes/s regardless of how far ahead the device runs.
     Transient delivery errors (absent receiver, routing blips) drop
     packets fire-and-forget without stopping the stream."""
 

@@ -301,14 +301,14 @@ def test_cli_shard_concatenates_identically(tmp_path, fixture_paths):
 
 
 def test_cli_stats_reports_patch_dropped(tmp_path, fixture_paths, capsys):
-    """--stats in pallas mode surfaces the gain-trunc patch overflow
+    """--stats in fused mode surfaces the gain-trunc patch overflow
     counter (normally 0; nonzero means some LUT entries degraded to the
-    kernel's f32 trunc — a +-1 LSB effect users should see)."""
+    device's f32 trunc — a +-1 LSB effect users should see)."""
     out = str(tmp_path / "s.bin")
     rc = main(["-e", fixture_paths["rinex2"],
                "-l", "35.681298,139.766247,10.0",
                "-s", "1000000", "-d", "0.5", "-o", out,
-               "--mode", "pallas", "--stats"])
+               "--mode", "fused", "--stats"])
     assert rc == 0
     err = capsys.readouterr().err
     line = next(ln for ln in err.splitlines() if ln.startswith("sink stats"))

@@ -1,4 +1,4 @@
-"""Golden A/B tests: our TPU-native synthesis vs the unmodified reference.
+"""Golden A/B tests: our synthesis vs the unmodified reference.
 
 The reference C simulator (compiled against stub iio/curl libs, see
 ref_harness/) is the ground-truth oracle.  For identical RINEX + scenario
@@ -219,7 +219,7 @@ def test_golden_time_overwrite(oracle_exe, tmp_path, fixture_paths):
 
 
 def test_tiled_matches_precise(fixture_paths):
-    """The TPU-tiled XLA path tracks the f64 golden path within its own
+    """The tiled XLA path tracks the f64 golden path within its own
     (tighter) tolerance — one A/B inside the framework, no oracle needed."""
     xyz = np.asarray(llh2xyz(TOKYO_LLH))
     a = _our_stream(fixture_paths, xyz, 2, mode="precise")
@@ -237,7 +237,8 @@ def test_pallas_gain_above_unity(fixture_paths):
     packed accumulator must budget for it — with the old 512 bias a
     single-channel trough sample underflowed the low half and borrowed
     into Q (I came out ~ +65021 instead of ~ -515)."""
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
+    from pluto_gps_sim_tpu.ops.synth_fused import synth_blocks
     from pluto_gps_sim_tpu.ops.synth_jnp import (pack_plan,
                                                  synth_superframe_precise)
     from pluto_gps_sim_tpu.runtime.scheduler import Scheduler
@@ -267,9 +268,8 @@ def test_pallas_gain_above_unity(fixture_paths):
     prm = sp.build_block_params(dp)
     assert prm.patch_dropped == 0
     ca_tabs = sp.pack_ca_tables([dp.ca2])
-    packed = np.asarray(sp.synth_blocks_pallas(
-        prm, ca_tabs, np.zeros(1, np.int32), dp.block_samples,
-        interpret=True))
+    packed = np.asarray(synth_blocks(
+        prm, ca_tabs, np.zeros(1, np.int32), dp.block_samples))
     n = dp.block_samples
     iq = np.stack([(packed[:, :n] & 0xFFFF).astype(np.uint16).view(np.int16),
                    (packed[:, :n] >> 16).astype(np.int16)], axis=-1)
@@ -282,9 +282,10 @@ def test_pallas_gain_above_unity(fixture_paths):
 
 
 def test_pallas_matches_precise(fixture_paths):
-    """The fused Pallas kernel (interpret mode on CPU) against the f64
+    """The fused path (its plain XLA version on the CPU) against the f64
     golden path."""
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
+    from pluto_gps_sim_tpu.ops.synth_fused import synth_blocks
     from pluto_gps_sim_tpu.ops.synth_jnp import pack_plan
     from pluto_gps_sim_tpu.runtime.scheduler import Scheduler
 
@@ -305,8 +306,8 @@ def test_pallas_matches_precise(fixture_paths):
     assert prm.patch_dropped == 0
     ca_tabs = sp.pack_ca_tables([dp.ca2])
     sf_map = np.zeros(dp.n_blocks, np.int32)
-    packed = np.asarray(sp.synth_blocks_pallas(
-        prm, ca_tabs, sf_map, dp.block_samples, interpret=True))
+    packed = np.asarray(synth_blocks(
+        prm, ca_tabs, sf_map, dp.block_samples))
     n = dp.block_samples
     iq = packed[:, :n].view(np.int16).reshape(dp.n_blocks, n, 2) \
         if packed.dtype == np.int32 else packed
@@ -321,7 +322,7 @@ def test_pallas_matches_precise(fixture_paths):
     max_err = int(np.abs(iq.astype(np.int64)
                          - golden.astype(np.int64)).max())
     assert np.array_equal(iq, golden), \
-        f"pallas vs precise: bit-exact {exact:.6%}, max err {max_err}"
+        f"fused vs precise: bit-exact {exact:.6%}, max err {max_err}"
 
 
 def test_golden_10s_drift(oracle_exe, tmp_path, fixture_paths):
@@ -361,13 +362,14 @@ def test_doppler_resonant_block_tracks_precise(fixture_paths):
     sample-exactly here."""
     from pluto_gps_sim_tpu.constants import MAX_CHAN
     from pluto_gps_sim_tpu.models.cacode import CA_TABLE
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
+    from pluto_gps_sim_tpu.ops.synth_fused import synth_blocks
     from pluto_gps_sim_tpu.ops.synth_jnp import (
         pack_plan, synth_superframe_precise, synth_superframe_tiled)
     from pluto_gps_sim_tpu.runtime.scheduler import SuperframePlan
 
     fs = 2_600_000.0
-    N = 65536  # one kernel tile's worth, interpret-mode friendly
+    N = 65536  # short block, CPU friendly
     C = MAX_CHAN
     rng = np.random.RandomState(11)
 
@@ -397,9 +399,9 @@ def test_doppler_resonant_block_tracks_precise(fixture_paths):
     )
     dp = pack_plan(plan)
     golden = synth_superframe_precise(dp)
-    packed = np.asarray(sp.synth_blocks_pallas(
+    packed = np.asarray(synth_blocks(
         sp.build_block_params(dp), sp.pack_ca_tables([dp.ca2]),
-        np.zeros(1, np.int32), N, interpret=True))[:, :N]
+        np.zeros(1, np.int32), N))[:, :N]
     got = np.stack([(packed & 0xFFFF).astype(np.uint16).view(np.int16),
                     (packed >> 16).astype(np.int16)], axis=-1)
     bad = int((got != golden).sum())
@@ -417,10 +419,11 @@ def test_gain_trunc_patch_exact(fixture_paths):
     f32 gain lane a few ulps so the kernel's truncs match the f64 tables
     outright; the legacy patch-word path (nudge=False) must also still
     reproduce the f64 precise path sample-exactly via the in-kernel
-    guarded fori_loop (synth_pallas._SLOT_I et al.)."""
+    row patch pass (ops.params._SLOT_I et al.)."""
     from pluto_gps_sim_tpu.constants import MAX_CHAN
     from pluto_gps_sim_tpu.models.cacode import CA_TABLE
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
+    from pluto_gps_sim_tpu.ops.synth_fused import synth_blocks
     from pluto_gps_sim_tpu.ops.synth_jnp import (
         pack_plan, synth_superframe_precise)
     from pluto_gps_sim_tpu.runtime.scheduler import SuperframePlan
@@ -459,9 +462,9 @@ def test_gain_trunc_patch_exact(fixture_paths):
     golden = synth_superframe_precise(dp)
 
     def run(prmi_, prmf_):
-        packed = np.asarray(sp.synth_blocks_pallas(
+        packed = np.asarray(synth_blocks(
             (prmi_, prmf_), sp.pack_ca_tables([dp.ca2]),
-            np.zeros(1, np.int32), N, interpret=True))[:, :N]
+            np.zeros(1, np.int32), N))[:, :N]
         return np.stack(
             [(packed & 0xFFFF).astype(np.uint16).view(np.int16),
              (packed >> 16).astype(np.int16)], axis=-1)
@@ -516,7 +519,8 @@ def test_gain_trunc_patch_overflow_degrades_gracefully(fixture_paths):
     sample-exact output — the round-5 closure of the _N_PATCH hole."""
     from pluto_gps_sim_tpu.constants import MAX_CHAN
     from pluto_gps_sim_tpu.models.cacode import CA_TABLE
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
+    from pluto_gps_sim_tpu.ops.synth_fused import synth_blocks
     from pluto_gps_sim_tpu.ops.synth_jnp import (
         pack_plan, synth_superframe_precise)
     from pluto_gps_sim_tpu.runtime.scheduler import SuperframePlan
@@ -554,9 +558,9 @@ def test_gain_trunc_patch_overflow_degrades_gracefully(fixture_paths):
     golden = synth_superframe_precise(dp)
 
     def run(prmi_, prmf_):
-        packed = np.asarray(sp.synth_blocks_pallas(
+        packed = np.asarray(synth_blocks(
             (prmi_, prmf_), sp.pack_ca_tables([dp.ca2]),
-            np.zeros(1, np.int32), N, interpret=True))[:, :N]
+            np.zeros(1, np.int32), N))[:, :N]
         return np.stack(
             [(packed & 0xFFFF).astype(np.uint16).view(np.int16),
              (packed >> 16).astype(np.int16)], axis=-1)
@@ -598,7 +602,8 @@ def test_patch_prefilter_matches_dense_sweep_on_real_scenario(fixture_paths):
     clear the SAME span with zero drops and zero residual patch words —
     the round-5 bench/soak zero-drop guarantee on its worst measured
     input."""
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
+    from pluto_gps_sim_tpu.ops.synth_fused import synth_blocks
     from pluto_gps_sim_tpu.ops.synth_jnp import pack_plan
     from pluto_gps_sim_tpu.runtime.scheduler import Scheduler
 

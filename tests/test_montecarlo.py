@@ -14,7 +14,7 @@ from pluto_gps_sim_tpu.runtime import select_ephemeris_set, setup_scenario
 from pluto_gps_sim_tpu.runtime.stream import IqStream
 
 FS = 1_000_000.0
-BS = 16_384  # small blocks (2 kernel tiles) keep interpret-mode fast
+BS = 16_384  # small blocks keep the CPU runs fast
 
 
 @pytest.fixture(scope="module")
@@ -42,13 +42,14 @@ def test_mc_matches_individual_streams(scenario):
     rin, g0, ieph = scenario
     xyz = _perturbed_receivers(3)
     mc = MonteCarloBatch(rin, g0, ieph, xyz, fs=FS, block_samples=BS)
-    batch = mc.generate(n_blocks=4, interpret=True)
+    batch = mc.generate(n_blocks=4)
     assert batch.shape == (3, 4, BS, 2)
 
     for b in range(3):
         solo = IqStream(rin, g0, ieph, xyz[b], fs=FS, block_samples=BS,
                         mode="tiled").generate(4)
-        # pallas-interpret vs tiled XLA: not bit-identical paths, compare
+        # fused vs tiled: not bit-identical paths (f32 vs f64 gain
+        # truncation up to the nudge/patch floor), compare
         # by SNR and near-total sample equality
         ref = solo.astype(np.float64)
         diff = ref - batch[b].astype(np.float64)
@@ -62,7 +63,7 @@ def test_mc_sharded_matches_unsharded(scenario):
     rin, g0, ieph = scenario
     xyz = _perturbed_receivers(4)
     mc = MonteCarloBatch(rin, g0, ieph, xyz, fs=FS, block_samples=BS)
-    a = mc.generate(n_blocks=2, interpret=True)
+    a = mc.generate(n_blocks=2)
 
     mc2 = MonteCarloBatch(rin, g0, ieph, xyz, fs=FS, block_samples=BS)
     mesh = make_mesh(jax.devices("cpu")[:8])  # 4 time x 2 chan or similar
@@ -88,7 +89,7 @@ def test_mc_mesh_padding_small_batch(scenario):
     assert iq.shape == (1, 1, BS, 2)
 
     mc2 = MonteCarloBatch(rin, g0, ieph, xyz, fs=FS, block_samples=BS)
-    ref = mc2.generate(n_blocks=1, interpret=True)
+    ref = mc2.generate(n_blocks=1)
     assert np.array_equal(iq, ref)
 
 
@@ -98,9 +99,9 @@ def test_mc_chunked_launches_match_single(scenario):
     rin, g0, ieph = scenario
     xyz = _perturbed_receivers(3)
     mc1 = MonteCarloBatch(rin, g0, ieph, xyz, fs=FS, block_samples=BS)
-    one = mc1.generate(n_blocks=4, interpret=True)
+    one = mc1.generate(n_blocks=4)
     mc2 = MonteCarloBatch(rin, g0, ieph, xyz, fs=FS, block_samples=BS)
-    chunked = mc2.generate(n_blocks=4, interpret=True, chunk_blocks=5)
+    chunked = mc2.generate(n_blocks=4, chunk_blocks=5)
     assert np.array_equal(one, chunked)
 
 
@@ -119,12 +120,12 @@ def test_mc_boundary_branch_matches_individual(scenario):
     xyz = _perturbed_receivers(3)
 
     mc = MonteCarloBatch(rin, g0b, ieph, xyz, fs=FS, block_samples=BS)
-    batch = mc.generate(n_blocks=8, interpret=True)
+    batch = mc.generate(n_blocks=8)
     assert mc.nav_cache.hits > 0, "shared nav cache never hit"
 
     for b in range(xyz.shape[0]):
         solo = IqStream(rin, g0b, ieph, xyz[b], fs=FS, block_samples=BS,
-                        mode="pallas").generate(8)
+                        mode="fused").generate(8)
         assert np.array_equal(batch[b], solo), f"receiver {b} diverges " \
             "across the 30 s boundary"
 
@@ -138,14 +139,14 @@ def test_mc_streaming_superframes_match_monolithic(scenario):
     rin, g0, ieph = scenario
     mc = MonteCarloBatch(rin, g0, ieph, _perturbed_receivers(3), fs=FS,
                          block_samples=BS)
-    mono = mc.generate(7, interpret=True)           # [3, 7, N, 2]
+    mono = mc.generate(7)           # [3, 7, N, 2]
 
     mc2 = MonteCarloBatch(rin, g0, ieph, _perturbed_receivers(3), fs=FS,
                           block_samples=BS)
     crc_mono = [zlib.crc32(mono.reshape(21, BS, 2)[r].tobytes())
                 for r in range(21)]
     seen = 0
-    for off, iq in mc2.superframes(7, interpret=True, chunk_blocks=4):
+    for off, iq in mc2.superframes(7, chunk_blocks=4):
         assert off == seen and iq.shape[0] <= 4
         for j in range(iq.shape[0]):
             assert zlib.crc32(iq[j].tobytes()) == crc_mono[off + j], \
@@ -160,11 +161,11 @@ def test_mc_streaming_as_device(scenario):
     rin, g0, ieph = scenario
     mc = MonteCarloBatch(rin, g0, ieph, _perturbed_receivers(2), fs=FS,
                          block_samples=BS)
-    mono = mc.generate(3, interpret=True).reshape(6, BS, 2)
+    mono = mc.generate(3).reshape(6, BS, 2)
     mc2 = MonteCarloBatch(rin, g0, ieph, _perturbed_receivers(2), fs=FS,
                           block_samples=BS)
     got = []
-    for off, dev in mc2.superframes(3, interpret=True, chunk_blocks=3,
+    for off, dev in mc2.superframes(3, chunk_blocks=3,
                                     as_device=True):
         packed = np.asarray(dev)[:, :BS]
         got.append(np.stack(
@@ -184,7 +185,7 @@ def test_mc_union_resolve_branch_matches_per_receiver(scenario):
     same span — the ground truth nothing else checks at churn scale."""
     import pluto_gps_sim_tpu.parallel.montecarlo as mcm
     from pluto_gps_sim_tpu.models.lnav import NavCache
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
     from pluto_gps_sim_tpu.ops.synth_jnp import pack_plan
     from pluto_gps_sim_tpu.runtime.scheduler import Scheduler
 

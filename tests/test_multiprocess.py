@@ -1,9 +1,9 @@
-"""Multi-process (DCN-style) distributed synthesis dryrun.
+"""Multi-process distributed synthesis dryrun.
 
 Two jax.distributed processes x 4 virtual CPU devices each form one
 8-device global mesh whose CHANNEL axis spans the process boundary, so
 the composite psum crosses processes — the communication pattern of a
-real multi-host TPU deployment (SCALING.md).  Each worker verifies its
+real multi-host deployment (SCALING.md).  Each worker verifies its
 addressable output shards bit-for-bit against an unsharded local run.
 
 The reference has no distributed story at all (one process, two threads,

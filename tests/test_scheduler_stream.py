@@ -4,7 +4,7 @@ snapshot/restore.
 
 These exercise the host control plane the reference runs inline in its
 generation loop (plutogpssim.c:2762-2798) — nav refresh, rollover,
-re-allocation — and the TPU-design property that makes time-block
+re-allocation — and the design property that makes time-block
 sharding legal: any split of the block stream into superframes yields
 bit-identical IQ.
 """
@@ -144,18 +144,18 @@ def test_motion_wraparound(fixture_paths, rinex):
 
 def test_stream_mesh_sharded_matches_single(rinex):
     """IqStream(mesh=...) — full production stream over a (time, chan)
-    mesh — equals the single-device pallas stream bit-for-bit."""
+    mesh — equals the single-device fused stream bit-for-bit."""
     import jax
     from pluto_gps_sim_tpu.parallel import make_mesh
 
     g0 = setup_scenario(rinex, None)
     ieph = select_ephemeris_set(rinex, g0)
     a = IqStream(rinex, g0, ieph, _xyz(), fs=FS, block_samples=32768,
-                 mode="pallas").generate(3)
+                 mode="fused").generate(3)
     mesh = make_mesh(jax.devices("cpu")[:8])
     # 3 blocks over 2 time shards also exercises the pad-to-shards path
     b = IqStream(rinex, g0, ieph, _xyz(), fs=FS, block_samples=32768,
-                 mode="pallas", mesh=mesh).generate(3)
+                 mode="fused", mesh=mesh).generate(3)
     assert np.array_equal(a, b)
 
 
@@ -297,13 +297,13 @@ def test_batched_dispatch_identical(rinex):
 
 
 def test_batched_dispatch_pallas_interpret(rinex):
-    """The pallas multi-superframe dispatch path (sf_map + per-superframe
+    """The fused multi-superframe dispatch path (sf_map + per-superframe
     C/A tables) matches the tiled stream bit for bit."""
     g0 = setup_scenario(rinex, None)
     ieph = select_ephemeris_set(rinex, g0)
     a = IqStream(rinex, g0, ieph, _xyz(), fs=FS, mode="tiled",
                  block_samples=8192).generate(9)
-    s = IqStream(rinex, g0, ieph, _xyz(), fs=FS, mode="pallas",
+    s = IqStream(rinex, g0, ieph, _xyz(), fs=FS, mode="fused",
                  block_samples=8192, superframes_per_dispatch=2)
     parts = list(s.superframes(9, max_blocks=3))
     assert np.array_equal(np.concatenate(parts, axis=0), a)
@@ -396,11 +396,12 @@ def test_pack_ca_group_cache_is_transparent(rinex):
     hits, misses, and evictions returns exactly sp.pack_ca_tables'
     output (same shape — one slot per superframe — same bytes)."""
     from pluto_gps_sim_tpu.models.cacode import CA_TABLE
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
+    from pluto_gps_sim_tpu.ops.synth_fused import synth_blocks
 
     g0 = setup_scenario(rinex, None)
     ieph = select_ephemeris_set(rinex, g0)
-    s = IqStream(rinex, g0, ieph, _xyz(), fs=FS, mode="pallas",
+    s = IqStream(rinex, g0, ieph, _xyz(), fs=FS, mode="fused",
                  block_samples=8192)
     tabs = [(CA_TABLE[np.arange(i, i + 12) % 32] * 2 - 1).astype(np.int8)
             for i in range(70)]  # > the 64-entry cache bound
@@ -532,13 +533,14 @@ def test_split_plan_lifts_block_cap(rinex, monkeypatch):
     """ops.synth_jnp.split_plan: blocks beyond the fused kernel's Q24
     range split into K re-anchored sub-blocks.  Checks (at small sizes,
     with the cap monkeypatched down so the split path engages):
-    (1) interpret-mode pallas on the split plan == precise on the split
+    (1) the fused path on the split plan == precise on the split
     plan, sample-exact; (2) reassembled split-precise tracks UNSPLIT
     precise (the re-anchor rounding is ~1e-10 chips — allow a handful
-    of chip-edge straddles); (3) IqStream in pallas mode transparently
+    of chip-edge straddles); (3) IqStream in fused mode transparently
     splits and yields [M, N, 2] rows that match the unsplit tiled
     stream within the shared quantization floor."""
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
+    from pluto_gps_sim_tpu.ops.synth_fused import synth_blocks
     from pluto_gps_sim_tpu.ops.synth_jnp import (
         pack_plan, split_plan, synth_superframe_precise)
 
@@ -554,25 +556,24 @@ def test_split_plan_lifts_block_cap(rinex, monkeypatch):
     golden_s = synth_superframe_precise(dp_s)        # [M*K, sub, 2]
     prm = sp.build_group_params([dp_s])
     assert prm.patch_dropped == 0
-    packed = np.asarray(sp.synth_blocks_pallas(
+    packed = np.asarray(synth_blocks(
         prm, sp.pack_ca_tables([dp_s.ca2]),
-        np.zeros(dp_s.n_blocks, np.int32), dp_s.block_samples,
-        interpret=True))[:, :dp_s.block_samples]
+        np.zeros(dp_s.n_blocks, np.int32), dp_s.block_samples))[:, :dp_s.block_samples]
     got = sp.unpack_iq(packed)
     assert np.array_equal(got, golden_s), (
         f"{int((got != golden_s).sum())} components diverge "
-        f"(split pallas vs split precise)")
+        f"(split fused vs split precise)")
 
     golden_u = synth_superframe_precise(dp)          # [M, N, 2]
     re_s = golden_s.reshape(4, 3 * 16384, 2)[:, :N]
     bad = int((re_s != golden_u).sum())
     assert bad <= 8, f"{bad} split-vs-unsplit precise mismatches"
 
-    # stream-level: pallas mode splits transparently when block_samples
+    # stream-level: fused mode splits transparently when block_samples
     # exceeds the (patched) kernel cap
     monkeypatch.setattr(sp, "MAX_BLOCK_SAMPLES", 16384)
     s = IqStream(rinex, g0, ieph, _xyz(), fs=FS, block_samples=N,
-                 mode="pallas")
+                 mode="fused")
     assert s._split_k == 3
     t = IqStream(rinex, g0, ieph, _xyz(), fs=FS, block_samples=N,
                  mode="tiled")
@@ -580,7 +581,7 @@ def test_split_plan_lifts_block_cap(rinex, monkeypatch):
     want_t = np.concatenate(list(t.superframes(4, max_blocks=2)), axis=0)
     assert got_s.shape == want_t.shape == (4, N, 2)
     d = np.abs(got_s.astype(np.int32) - want_t.astype(np.int32))
-    # pallas-split and tiled anchor their NCOs at different offsets, so
+    # fused-split and tiled anchor their NCOs at different offsets, so
     # a few samples may straddle the shared ~1e-11-chip trunc floor
     assert int((d > 0).sum()) <= 8 and int(d.max()) <= 8, (
         int((d > 0).sum()), int(d.max()))
@@ -588,11 +589,12 @@ def test_split_plan_lifts_block_cap(rinex, monkeypatch):
 
 def test_patch_variant_latch_is_output_invariant(rinex):
     """The per-stream patch-variant latch (IqStream._saw_patches ->
-    synth_blocks_pallas force_patches) exists to pin ONE compiled kernel
+    synth_blocks force_patches) exists to pin ONE compiled
     variant per stream; the wide (patch-pass) variant on a patch-free
     dispatch must produce bit-identical output to the narrow fast path,
     at both the kernel and the stream level."""
-    from pluto_gps_sim_tpu.ops import synth_pallas as sp
+    from pluto_gps_sim_tpu.ops import params as sp
+    from pluto_gps_sim_tpu.ops.synth_fused import synth_blocks
     from pluto_gps_sim_tpu.ops.synth_jnp import pack_plan
 
     g0 = setup_scenario(rinex, None)
@@ -603,14 +605,13 @@ def test_patch_variant_latch_is_output_invariant(rinex):
     assert not np.any(prm.prmf[:, 128:]), "fixture dispatch not patch-free"
     args = (prm, sp.pack_ca_tables([dp.ca2]),
             np.zeros(dp.n_blocks, np.int32), dp.block_samples)
-    narrow = np.asarray(sp.synth_blocks_pallas(*args, interpret=True))
-    wide = np.asarray(sp.synth_blocks_pallas(*args, interpret=True,
-                                             force_patches=True))
+    narrow = np.asarray(synth_blocks(*args))
+    wide = np.asarray(synth_blocks(*args, force_patches=True))
     assert np.array_equal(narrow, wide)
 
     a = IqStream(rinex, g0, ieph, _xyz(), fs=FS, block_samples=16384,
-                 mode="pallas").generate(2)
+                 mode="fused").generate(2)
     s = IqStream(rinex, g0, ieph, _xyz(), fs=FS, block_samples=16384,
-                 mode="pallas")
+                 mode="fused")
     s._saw_patches = True                 # latched stream, same output
     assert np.array_equal(s.generate(2), a)

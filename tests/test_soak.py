@@ -83,7 +83,7 @@ def test_soak_rollover_vs_oracle(oracle_exe, tmp_path, fixture_paths):
 
 
 def test_soak_one_hour_stream(fixture_paths):
-    """3700 simulated seconds THROUGH THE PALLAS PATH: rollover +
+    """3700 simulated seconds THROUGH THE FUSED PATH: rollover +
     rise/set churn + resume splice + ZERO patch drops (the round-5 gain
     nudge absorbs the hour's near-rational gain sweeps that used to
     overflow the patch slots), every superframe held to the tiled
@@ -91,8 +91,8 @@ def test_soak_one_hour_stream(fixture_paths):
 
     Until round 4 this soak ran mode="tiled" only, so hour-scale
     rise/set churn never passed through the flagship kernel path
-    anywhere (the compiled variant is the RUN_TPU production-path
-    gate, 450 s).  Here the pallas kernel runs in interpret mode on
+    anywhere (the on-card variant is chip_smoke.py's production-path
+    gate, 450 s).  Here the fused path runs its XLA version on the
     CPU — same math, same build_block_params/patch-word/sf_map front
     end — and each ~30 s superframe is compared component-wise against
     the tiled stream, which long-run A/Bs hold to the reference."""
@@ -103,7 +103,7 @@ def test_soak_one_hour_stream(fixture_paths):
     # small device blocks: the soak exercises the control plane and the
     # hour-scale kernel front end, not throughput (bench.py owns that)
     kw = dict(fs=1_000_000.0, block_samples=16384)
-    stream = IqStream(rin, g0, ieph, xyz, mode="pallas", **kw)
+    stream = IqStream(rin, g0, ieph, xyz, mode="fused", **kw)
     shadow = IqStream(rin, g0, ieph, xyz, mode="tiled", **kw)
 
     n_blocks = 37_000  # 3700 s
@@ -136,7 +136,7 @@ def test_soak_one_hour_stream(fixture_paths):
     # gain sweeps pass through near-rational values whose same-direction
     # trunc-mismatch bursts used to overflow the 7 per-block patch slots
     # (round 4 measured 96 dropped words here), but the round-5 gain
-    # nudge (synth_pallas.build_block_params) absorbs those bursts by
+    # nudge (ops.params.build_block_params) absorbs those bursts by
     # moving the f32 gain lane, leaving at most a couple of
     # mixed-direction residuals per block — well inside the slots.
     # Everything is then held to the quantization-floor bound
@@ -147,13 +147,13 @@ def test_soak_one_hour_stream(fixture_paths):
         f"near-rational gain sweeps; any drop is a regression)"
     frac_bad = bad / (done * 16384 * 2)
     budget = 2400
-    print(f"1-hour pallas soak: mismatch fraction {frac_bad:.2e} "
+    print(f"1-hour fused soak: mismatch fraction {frac_bad:.2e} "
           f"({bad} components, budget {budget}), max err {max_err}, "
           f"patch words dropped {drops}")
     assert bad <= budget and max_err <= 8
 
-    # resume from the mid-run snapshot and splice (pallas-mode stream)
-    stream2 = IqStream(rin, g0, ieph, xyz, mode="pallas", **kw)
+    # resume from the mid-run snapshot and splice (fused-mode stream)
+    stream2 = IqStream(rin, g0, ieph, xyz, mode="fused", **kw)
     stream2.restore(snap)
     b = stream2.generate(1)
     a = np.concatenate(tail_a, axis=0)[:1]
